@@ -12,9 +12,9 @@ src/xdropfwd.cpp, src/xdropbwd.cpp, src/mergefwdback.cpp):
      total < MinMegaHSPScore; else banded gapped x-drop (X2=8) around the
      best HSP's best 8-mer, fwd+bwd merged
 
-On TPU this path exists for output parity with the reference; chains that
-fit the SW buckets can alternatively take the full-SW path (more exact,
-and fast on the MXU/VPU) via DSSParams.mkfl.
+On the device engine this path exists for output parity with the
+reference; chains that fit the SW buckets can alternatively take the
+full-SW path (more exact) via DSSParams.mkfl.
 """
 
 from __future__ import annotations

@@ -4,9 +4,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import os
-import subprocess
-import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -15,35 +12,13 @@ from reseek_tpu.constants import ALPHA_SIZES, DSSParams
 from reseek_tpu.data.tables import get_tables
 from reseek_tpu.ops.substmx import weighted_matrices
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), "native", "mkf.cpp")
-
-# guards only the compile-and-load step; mkf_align itself has no global
-# state (all buffers are caller-owned), so concurrent calls are safe and
-# run GIL-free (ctypes releases the GIL for the foreign call)
-_lock = threading.Lock()
 
 
 @functools.lru_cache(maxsize=1)
 def _lib() -> Optional[ctypes.CDLL]:
-    if os.environ.get("RESEEK_NATIVE", "1") == "0":
-        return None
-    cache_dir = os.environ.get(
-        "RESEEK_NATIVE_CACHE",
-        os.path.join(os.path.dirname(_SRC), "build"))
-    so_path = os.path.join(cache_dir, "libmkf.so")
-    try:
-        with _lock:
-            if (not os.path.exists(so_path)
-                    or os.path.getmtime(so_path) < os.path.getmtime(_SRC)):
-                os.makedirs(cache_dir, exist_ok=True)
-                subprocess.run(
-                    ["g++", "-O2", "-march=native", "-shared", "-fPIC",
-                     _SRC, "-o", so_path + ".tmp"],
-                    check=True, capture_output=True)
-                os.replace(so_path + ".tmp", so_path)
-            lib = ctypes.CDLL(so_path)
-    except Exception:
+    from reseek_tpu.native_build import load_host
+    lib = load_host("mkf")
+    if lib is None:
         return None
     u8p = ctypes.POINTER(ctypes.c_uint8)
     lib.mkf_align.restype = ctypes.c_int

@@ -2,7 +2,7 @@
 test statistic -> P-value.  Mirrors DSSAligner (src/dssaligner.cpp) with
 exact float32 semantics on the host parity path.
 
-Batched/TPU execution uses the same logic over padded batches
+Batched device execution uses the same logic over padded batches
 (reseek_tpu/search); this module is the reference implementation and the
 single-pair ("alignpair", trace/debug) path.
 """

@@ -177,7 +177,10 @@ def cmd_search(args) -> int:
                 or _os.environ.get("JAX_COORDINATOR_ADDRESS"),
                 num_processes=args.nprocs,
                 process_id=args.procid if args.procid is not None
-                else int(_os.environ.get("JAX_PROCESS_ID", "0")))
+                else int(_os.environ.get("JAX_PROCESS_ID", "0")),
+                local_device_ids=(
+                    [int(x) for x in args.local_device_ids.split(",")]
+                    if args.local_device_ids else None))
             scratch = args.scratch or (
                 _os.path.dirname(_os.path.abspath(args.output))
                 if args.output else tempfile.gettempdir())
@@ -185,7 +188,7 @@ def cmd_search(args) -> int:
                 chains, args.db, options, out if pid == 0 else None,
                 scratch_dir=scratch, dbmu=args.dbmu,
                 prefilter_mode=pf_mode, resume=args.resume,
-                engine="device" if args.engine == "device" else "host")
+                engine=args.engine)
         elif args.db and mode == "fast":
             from reseek_tpu.search.driver import fast_search
             pf_mode = ("idxq" if args.idxq
@@ -2553,8 +2556,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--engine", default="auto",
                    choices=["auto", "device", "host"],
                    help="force the batched device engine or the host "
-                        "per-pair path (default: device when a TPU is "
-                        "attached)")
+                        "per-pair path (default: device on the GPU, host "
+                        "on the CPU)")
     p.add_argument("--idxq", action="store_true",
                    help="force query-neighborhood prefilter indexing "
                         "(reference -idxq, src/muprefilter.cpp:70-80)")
@@ -2579,6 +2582,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--coord", default=None,
                    help="multi-host run: coordinator host:port "
                         "(default: $JAX_COORDINATOR_ADDRESS)")
+    p.add_argument("--local-device-ids", dest="local_device_ids",
+                   default=None,
+                   help="multi-host run: comma list of the local devices "
+                        "this process drives (e.g. one card per process "
+                        "on a 4-card host; default: all)")
     p.add_argument("--scratch", default=None,
                    help="multi-host run: shared scratch dir for per-host "
                         "row files (default: alongside --output)")

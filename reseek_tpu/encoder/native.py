@@ -1,18 +1,16 @@
 """ctypes binding for the native DSS encoder (native/dss_encoder.cpp).
 
-The shared library is compiled on demand with g++ and cached next to the
-package; trained constants (Conf centroids, bin thresholds) are passed in
-from reseek_tpu.data so the numeric source of truth stays in one place.
-Falls back silently to the numpy encoder when no compiler is available.
+The shared library is built on first use for this machine
+(reseek_tpu/native_build.py); trained constants (Conf centroids, bin
+thresholds) are passed in from reseek_tpu.data so the numeric source of
+truth stays in one place.  With RESEEK_NATIVE=0 callers use the numpy
+encoder.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import os
-import subprocess
-import threading
 from typing import Optional
 
 import numpy as np
@@ -21,38 +19,15 @@ from reseek_tpu.chain import Chain
 from reseek_tpu.constants import ALL_FEATURES
 from reseek_tpu.data.tables import BIN_THRESHOLDS, get_tables
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), "native",
-    "dss_encoder.cpp")
 _BIN_ORDER = ["NormDens", "NENDist", "HelixDens", "StrandDens",
               "DstNxtHlx", "DstPrvHlx", "NX", "RENDist", "PMDist"]
-
-_lock = threading.Lock()
 
 
 @functools.lru_cache(maxsize=1)
 def _lib() -> Optional[ctypes.CDLL]:
-    if os.environ.get("RESEEK_NATIVE", "1") == "0":
-        return None
-    cache_dir = os.environ.get(
-        "RESEEK_NATIVE_CACHE",
-        os.path.join(os.path.dirname(_SRC), "build"))
-    so_path = os.path.join(cache_dir, "libdssenc.so")
-    try:
-        # the lock guards compile-and-load only: two threads racing the
-        # first encode must not both run g++ against the same .tmp path
-        # (the lru_cache alone doesn't serialize concurrent first calls)
-        with _lock:
-            if (not os.path.exists(so_path)
-                    or os.path.getmtime(so_path) < os.path.getmtime(_SRC)):
-                os.makedirs(cache_dir, exist_ok=True)
-                subprocess.run(
-                    ["g++", "-O2", "-march=native", "-shared", "-fPIC",
-                     _SRC, "-o", so_path + ".tmp"],
-                    check=True, capture_output=True)
-                os.replace(so_path + ".tmp", so_path)
-            lib = ctypes.CDLL(so_path)
-    except Exception:
+    from reseek_tpu.native_build import load_host
+    lib = load_host("dssenc")
+    if lib is None:
         return None
     lib.dss_encode.restype = ctypes.c_int
     lib.dss_encode.argtypes = [

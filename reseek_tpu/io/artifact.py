@@ -2,7 +2,7 @@
 coords and per-mode self-reversal scores, precomputed once so repeat
 searches skip all DSS work.
 
-TPU-native counterpart of the reference's persistent stage artifacts
+Counterpart of the reference's persistent stage artifacts
 (SURVEY §5): .bca DBs + `-dbmu` Mu FASTA (src/search.cpp:96-99 lets the
 prefilter skip re-encoding the DB).  This artifact goes further — it also
 stores the integer feature profiles and the self-reversal scores (which

@@ -11,40 +11,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import os
-import subprocess
-import threading
 from typing import Optional
 
 import numpy as np
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), "native", "lddt.cpp")
-_lock = threading.Lock()
-
 
 @functools.lru_cache(maxsize=1)
 def _lib() -> Optional[ctypes.CDLL]:
-    if os.environ.get("RESEEK_NATIVE", "1") == "0":
-        return None
-    cache_dir = os.environ.get(
-        "RESEEK_NATIVE_CACHE",
-        os.path.join(os.path.dirname(_SRC), "build"))
-    so_path = os.path.join(cache_dir, "liblddt.so")
-    try:
-        with _lock:
-            if (not os.path.exists(so_path)
-                    or os.path.getmtime(so_path) < os.path.getmtime(_SRC)):
-                os.makedirs(cache_dir, exist_ok=True)
-                # -ffp-contract=off: only the EXPLICIT fmaf calls fuse,
-                # matching the reference's contracted d^2 and nothing else
-                subprocess.run(
-                    ["g++", "-O2", "-march=native", "-ffp-contract=off",
-                     "-shared", "-fPIC", _SRC, "-o", so_path + ".tmp"],
-                    check=True, capture_output=True)
-                os.replace(so_path + ".tmp", so_path)
-            lib = ctypes.CDLL(so_path)
-    except Exception:
+    from reseek_tpu.native_build import load_host
+    lib = load_host("lddt")
+    if lib is None:
         return None
     f32p = ctypes.POINTER(ctypes.c_float)
     i64p = ctypes.POINTER(ctypes.c_int64)

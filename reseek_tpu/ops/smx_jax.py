@@ -2,11 +2,11 @@
 
 Two formulations of S[b,i,j] = sum_f w_f * M_f[profA[b,f,i], profB[b,f,j]]:
 
-- ``smx_batch``:  MXU path.  Profiles become flat codes into a concatenated
+- ``smx_batch``:  matmul path.  Profiles become flat codes into a concatenated
   alphabet (D = sum of alphabet sizes, 132 for the default 8 features); the
   weighted per-feature matrices form a block-diagonal W [D, D]; then
   S = embA @ W @ onehotB^T collapses to two matmuls.  HIGHEST precision
-  keeps f32-accurate accumulation on the MXU.
+  keeps f32-accurate accumulation.
 
 - ``smx_batch_gather``: bit-exact path.  Eight [L,A] table gathers summed
   elementwise in feature order — identical float32 adds to the reference's
@@ -66,7 +66,7 @@ def smx_batch(codes_a: jnp.ndarray, codes_b: jnp.ndarray,
     """codes_*: int32 [B, F, L]; returns S [B, LA, LB] float32.
 
     embA[b,i,:] = sum_f W[codes_a[b,f,i], :]  (row gather + add, exact)
-    S = embA @ onehotB^T                      (MXU, HIGHEST precision)
+    S = embA @ onehotB^T                      (matmul, HIGHEST precision)
     """
     emb_a = w[codes_a].sum(axis=1)  # [B, LA, D+1]
     nb = w.shape[0]

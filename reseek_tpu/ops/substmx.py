@@ -4,9 +4,10 @@ Exact numpy builder accumulates feature-by-feature in float32 exactly like
 the reference's SetSMx_NoRev (src/dssaligner.cpp:529-611: first feature
 assigns, the rest +=, all float32).
 
-The TPU path expresses the same sum as two MXU matmuls over concatenated
-one-hot encodings with a block-diagonal weighted score matrix — see
-reseek_tpu/ops/smx_jax.py.
+The device path looks the same sum up in-kernel in the same order
+(ops/sw_cuda.py) or, on the plain JAX path, expresses it as two matmuls
+over concatenated one-hot encodings with a block-diagonal weighted score
+matrix — see reseek_tpu/ops/smx_jax.py.
 """
 
 from __future__ import annotations

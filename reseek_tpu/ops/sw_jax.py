@@ -3,7 +3,7 @@
 Same recurrences and tie rules as the host kernel (reseek_tpu/ops/sw_np.py,
 itself a replica of src/sw.cpp:79-212).  Dependencies only cross
 anti-diagonals, so each scan step is an elementwise update over [B, LA]
-state vectors — pure VPU work with no data-dependent control flow.
+state vectors — elementwise work with no data-dependent control flow.
 
 Two entry points:
 - sw_score_batch:   score-only forward pass (the hot path)

@@ -2,48 +2,26 @@
 
 Bit-identical to ops/sw_np.sw_score over ops/substmx.build_smx (the
 reference SWFast + SetSMx_NoRev pair) — the production host path for
-per-chain self-reversal scores.  Falls back to None when no compiler is
-available; callers then use the numpy replica.
+per-chain self-reversal scores.  Returns None with RESEEK_NATIVE=0;
+callers then use the numpy replica.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import os
-import subprocess
-import threading
 from typing import Optional
 
 import numpy as np
 
 from reseek_tpu.constants import DSSParams
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), "native", "sw.cpp")
-_lock = threading.Lock()
-
 
 @functools.lru_cache(maxsize=1)
 def _lib() -> Optional[ctypes.CDLL]:
-    if os.environ.get("RESEEK_NATIVE", "1") == "0":
-        return None
-    cache_dir = os.environ.get(
-        "RESEEK_NATIVE_CACHE",
-        os.path.join(os.path.dirname(_SRC), "build"))
-    so_path = os.path.join(cache_dir, "libsw.so")
-    try:
-        with _lock:
-            if (not os.path.exists(so_path)
-                    or os.path.getmtime(so_path) < os.path.getmtime(_SRC)):
-                os.makedirs(cache_dir, exist_ok=True)
-                subprocess.run(
-                    ["g++", "-O2", "-march=native", "-ffp-contract=off",
-                     "-shared", "-fPIC", _SRC, "-o", so_path + ".tmp"],
-                    check=True, capture_output=True)
-                os.replace(so_path + ".tmp", so_path)
-            lib = ctypes.CDLL(so_path)
-    except Exception:
+    from reseek_tpu.native_build import load_host
+    lib = load_host("sw")
+    if lib is None:
         return None
     u8p = ctypes.POINTER(ctypes.c_uint8)
     f32p = ctypes.POINTER(ctypes.c_float)

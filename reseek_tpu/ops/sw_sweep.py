@@ -1,7 +1,7 @@
 """Row-sweep Smith-Waterman for integer substitution matrices (the Mu
 filter, reference src/parasail_mu.cpp / src/sw.cpp recurrences).
 
-The wavefront kernel (ops/sw_jax.py, ops/sw_pallas.py) preserves the
+The wavefront kernel (ops/sw_jax.py, ops/sw_cuda.py) preserves the
 reference's float32 rounding per cell, which matters for the full-profile
 log-odds stages.  The 36-letter Mu filter, however, scores with an INTEGER
 matrix (src/mumx_data.cpp IntScoreMx_Mu, -7..4) and integer gap penalties
@@ -64,32 +64,6 @@ def _row_step(h_prev, h_prev2, e_prev, s_row, open_, ext, kext):
     return m + s_row, e
 
 
-def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
-
-
-# diagnostic counter for tests
-def sw_score_sweep_auto(s: jnp.ndarray, open_: float, ext: float):
-    """Pallas row-sweep on TPU, lax.scan elsewhere — identical values
-    (integer arithmetic is exact under any evaluation order).  The Pallas
-    kernel needs lane-aligned LB; other shapes use the scan.
-
-    s may be bfloat16 (integer Mu scores -7..4 are exact in bf16): the
-    Pallas kernel reads bf16 blocks from HBM — HALVING the substitution
-    tensor's memory traffic, the stage-1 bottleneck at scale — and casts
-    each row block to f32 in VMEM, so all DP arithmetic stays f32-exact.
-    The scan fallback casts up front."""
-    import os
-    impl = os.environ.get("RESEEK_SW", "auto")
-    if s.shape[-1] % 128 == 0 and (
-            impl == "pallas" or (impl == "auto"
-                                 and jax.default_backend() == "tpu")):
-        return sw_score_sweep_pallas(s, open_, ext)
-    if s.dtype != jnp.float32:
-        s = s.astype(jnp.float32)
-    return sw_score_sweep(s, open_, ext)
-
-
 @functools.partial(jax.jit, static_argnames=("open_", "ext"))
 def sw_score_sweep(s: jnp.ndarray, open_: float, ext: float) -> jnp.ndarray:
     """s: [B, LA, LB] f32 substitution tensor (NEG at padding).  Returns
@@ -113,265 +87,23 @@ def sw_score_sweep(s: jnp.ndarray, open_: float, ext: float) -> jnp.ndarray:
     return jnp.maximum(jnp.max(best, axis=-1), np.float32(0.0))
 
 
-# --------------------------------------------------------------------------
-# Pallas TPU row-sweep: one kernel, DP state resident in VMEM.  The XLA
-# lax.scan version above pays ~80 us of device loop overhead PER ROW on
-# this TPU (measured); the Pallas grid iterates (batch-tile, row-block)
-# with the row loop unrolled inside the kernel, so the whole sweep is one
-# kernel launch per tile.
-# --------------------------------------------------------------------------
-
-K_ROWS = 8            # rows per grid step
-_SWEEP_VMEM = 10 * 1024 * 1024
-
-
-def _sweep_bt_for(lb: int, k: int) -> int:
-    """Batch-tile size under the VMEM budget (input block double-buffered
-    + 4 f32 state arrays)."""
-    per_pair = lb * 4 * (2 * k + 4)
-    bt = max(8, (_SWEEP_VMEM // per_pair) // 8 * 8)
-    return int(min(bt, 256))
-
-
-def _roll_right(x, s, fill):
-    from jax.experimental.pallas import tpu as pltpu
-    lane = jax.lax.broadcasted_iota(jnp.int32, x.shape, 1)
-    return jnp.where(lane < s, fill, pltpu.roll(x, s, 1))
-
-
-def _sweep_kernel(s_ref, out_ref, h1, h2, e1, bestv, *, open_, ext, k, lb):
-    from jax.experimental import pallas as pl
-
-    dd = pl.program_id(1)
-    ndd = pl.num_programs(1)
-
-    @pl.when(dd == 0)
-    def _():
-        for r in (h1, h2, e1):
-            r[:] = jnp.full_like(r, NEG)
-        bestv[:] = jnp.zeros_like(bestv)
-
-    # Mosaic only supports integer iota; build the f32 ramp by casting.
-    ke = (jax.lax.broadcasted_iota(jnp.int32, h1.shape, 1)
-          .astype(jnp.float32) * np.float32(ext))
-    for kk in range(k):
-        s_row = s_ref[:, kk, :].astype(jnp.float32)
-        hp = h1[:]
-        # F(i, j) = j*ext + cummax_{k<=j}(H(i-1, k-2) + open - k*ext)
-        a = _roll_right(hp, 2, NEG) + np.float32(open_) - ke
-        step = 1
-        while step < lb:
-            a = jnp.maximum(a, _roll_right(a, step, NEG))
-            step *= 2
-        f = a + ke
-        e = jnp.maximum(_roll_right(h2[:], 1, NEG) + np.float32(open_),
-                        e1[:] + np.float32(ext))
-        m = jnp.maximum(jnp.maximum(_roll_right(hp, 1, NEG), e),
-                        jnp.maximum(f, np.float32(0.0)))
-        h = m + s_row
-        h2[:] = hp
-        h1[:] = h
-        e1[:] = e
-        bestv[:] = jnp.maximum(bestv[:], h)
-
-    @pl.when(dd == ndd - 1)
-    def _():
-        out_ref[0, 0, :] = jnp.maximum(jnp.max(bestv[:], axis=1),
-                                       np.float32(0.0))
-
-
-@functools.partial(jax.jit, static_argnames=("open_", "ext"))
-def sw_score_sweep_pallas(s: jnp.ndarray, open_: float,
-                          ext: float) -> jnp.ndarray:
-    """s: [B, LA, LB] f32 or bf16 (NEG at padding), LB a multiple of 128.
-    Returns best local f32 scores [B] (>= 0), equal to sw_score_sweep.
-    bf16 blocks use a 16-row grid step (the bf16 sublane tile)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    b, la, lb = s.shape
-    k = K_ROWS * 2 if s.dtype == jnp.bfloat16 else K_ROWS
-    la_pad = -(-la // k) * k
-    if la_pad != la:
-        s = jnp.pad(s, ((0, 0), (0, la_pad - la), (0, 0)),
-                    constant_values=NEG)
-    bt = _sweep_bt_for(lb, k)
-    nb = -(-b // bt)
-    bpad = nb * bt
-    if bpad != b:
-        s = jnp.pad(s, ((0, bpad - b), (0, 0), (0, 0)), constant_values=NEG)
-
-    kern = functools.partial(_sweep_kernel, open_=np.float32(open_),
-                             ext=np.float32(ext), k=k, lb=lb)
-    out = pl.pallas_call(
-        kern,
-        grid=(nb, la_pad // k),
-        in_specs=[pl.BlockSpec((bt, k, lb), lambda ib, dd: (ib, dd, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((1, 8, bt), lambda ib, dd: (ib, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((nb, 8, bt), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((bt, lb), jnp.float32)
-                        for _ in range(4)],
-        interpret=_interpret(),
-    )(s)
-    return out[:, 0, :].reshape(bpad)[:b]
-
-
-# --------------------------------------------------------------------------
-# Fused-smx Pallas row-sweep: the substitution row is built INSIDE the
-# kernel, so the [B, LA, LB] substitution tensor never exists in HBM.
-# Inputs are the per-position score vectors emb[p, i, :] = mumx[a[p, i], :]
-# ([B, LA, 37] f32 — 37/LB the size of the full tensor) and the target
-# letters bl[p, j] ([B, LB] int32).  Each grid step reconstructs its K_ROWS
-# substitution rows with a select tree over the 37 letters: the letter
-# masks (bl == c) are computed once per step and shared by all K rows
-# (~(37 + 37*K)/K ≈ 42 VPU ops/cell vs ~8 B/cell of HBM traffic for the
-# materialized tensor — the 1k-chain profile showed HBM at 22% of peak vs
-# VPU at 8.6%, so trading bandwidth for VPU work wins ~2x).
-# Values are bit-identical to mu_smx_onehot + sweep: integer scores are
-# exact either way, and padding cells (letter 36 -> mumx row/col 36 =
-# NEG/2) are too negative to ever win the DP max.
-# --------------------------------------------------------------------------
-
-
-def _fused_bt_for(lb: int, k: int) -> int:
-    """Batch-tile under the VMEM budget: 4 f32 state arrays + k s-rows +
-    int32 letters + the (tiny) emb block, double-buffered inputs."""
-    per_pair = lb * 4 * (4 + k + 1) + k * 40 * 4 * 2
-    bt = max(8, (_SWEEP_VMEM // per_pair) // 8 * 8)
-    return int(min(bt, 256))
-
-
-def _fused_sweep_kernel(emb_ref, bl_ref, out_ref, h1, h2, e1, bestv, *,
-                        open_, ext, k, lb):
-    from jax.experimental import pallas as pl
-
-    dd = pl.program_id(1)
-    ndd = pl.num_programs(1)
-
-    @pl.when(dd == 0)
-    def _():
-        for r in (h1, h2, e1):
-            r[:] = jnp.full_like(r, NEG)
-        bestv[:] = jnp.zeros_like(bestv)
-
-    bl = bl_ref[:]
-    # substitution rows for this K-row block: shared-mask select tree
-    srows = [jnp.zeros_like(bl, jnp.float32) for _ in range(k)]
-    for c in range(37):
-        mask = bl == c
-        for kk in range(k):
-            srows[kk] = jnp.where(mask, emb_ref[:, kk, c][:, None],
-                                  srows[kk])
-
-    ke = (jax.lax.broadcasted_iota(jnp.int32, h1.shape, 1)
-          .astype(jnp.float32) * np.float32(ext))
-    for kk in range(k):
-        s_row = srows[kk]
-        hp = h1[:]
-        a = _roll_right(hp, 2, NEG) + np.float32(open_) - ke
-        step = 1
-        while step < lb:
-            a = jnp.maximum(a, _roll_right(a, step, NEG))
-            step *= 2
-        f = a + ke
-        e = jnp.maximum(_roll_right(h2[:], 1, NEG) + np.float32(open_),
-                        e1[:] + np.float32(ext))
-        m = jnp.maximum(jnp.maximum(_roll_right(hp, 1, NEG), e),
-                        jnp.maximum(f, np.float32(0.0)))
-        h = m + s_row
-        h2[:] = hp
-        h1[:] = h
-        e1[:] = e
-        bestv[:] = jnp.maximum(bestv[:], h)
-
-    @pl.when(dd == ndd - 1)
-    def _():
-        out_ref[0, 0, :] = jnp.maximum(jnp.max(bestv[:], axis=1),
-                                       np.float32(0.0))
-
-
-@functools.partial(jax.jit, static_argnames=("open_", "ext"))
-def mu_sw_score_fused_pallas(a: jnp.ndarray, b: jnp.ndarray,
-                             mumx_padded: jnp.ndarray, open_: float,
-                             ext: float) -> jnp.ndarray:
-    """Best local SW scores [B] for letter arrays a [B, LA], b [B, LB]
-    (letter 36 = padding), LB a multiple of 128.  Bit-equal to
-    sw_score_sweep(mu_smx_onehot(a, b, mumx_padded)) without ever
-    materializing the [B, LA, LB] substitution tensor."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    bsz, la = a.shape
-    lb = b.shape[1]
-    k = K_ROWS
-    # per-position substitution vectors: emb[p, i, :] = mumx[a[p, i], :]
-    emb = mumx_padded.astype(jnp.float32)[a]
-    la_pad = -(-la // k) * k
-    if la_pad != la:
-        # padding rows score NEG/2 everywhere (mumx row 36)
-        emb = jnp.pad(emb, ((0, 0), (0, la_pad - la), (0, 0)),
-                      constant_values=float(NEG) / 2)
-    bl = b.astype(jnp.int32)
-    bt = _fused_bt_for(lb, k)
-    nb = -(-bsz // bt)
-    bpad = nb * bt
-    if bpad != bsz:
-        emb = jnp.pad(emb, ((0, bpad - bsz), (0, 0), (0, 0)),
-                      constant_values=float(NEG) / 2)
-        bl = jnp.pad(bl, ((0, bpad - bsz), (0, 0)), constant_values=36)
-
-    kern = functools.partial(_fused_sweep_kernel, open_=np.float32(open_),
-                             ext=np.float32(ext), k=k, lb=lb)
-    out = pl.pallas_call(
-        kern,
-        grid=(nb, la_pad // k),
-        in_specs=[pl.BlockSpec((bt, k, 37), lambda ib, dd: (ib, dd, 0),
-                               memory_space=pltpu.VMEM),
-                  pl.BlockSpec((bt, lb), lambda ib, dd: (ib, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((1, 8, bt), lambda ib, dd: (ib, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((nb, 8, bt), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((bt, lb), jnp.float32)
-                        for _ in range(4)],
-        interpret=_interpret(),
-    )(emb, bl)
-    return out[:, 0, :].reshape(bpad)[:bsz]
-
-
 def mu_sw_scores(a: jnp.ndarray, b: jnp.ndarray,
-                 mumx_padded: jnp.ndarray, open_: float,
-                 ext: float) -> jnp.ndarray:
-    """Mu SW scores for letter-array pairs.  Identical values on every
-    path (integer scores are exact in bf16 and under any order):
-
-    - default on TPU: substitution tensor materialized in BFLOAT16 and
-      swept by the Pallas kernel — halves the smx HBM traffic, the
-      measured stage-1 bottleneck (PROFILE.md: 22% HBM vs 8.6% VPU at
-      the 1k-chain scale);
-    - RESEEK_SW_FUSED=1: the fully-fused kernel (substitution rows
-      built in VMEM, no HBM tensor at all).  Opt-in only: correct (bit-
-      parity tests run it in interpret mode) but its 37-letter select
-      tree hangs the Mosaic compiler on this runtime's TPU toolchain;
-    - elsewhere: f32 scan sweep."""
-    import os
-    impl = os.environ.get("RESEEK_SW", "auto")
-    on_tpu = b.shape[-1] % 128 == 0 and (
-        impl == "pallas" or (impl == "auto"
-                             and jax.default_backend() == "tpu"))
-    if on_tpu and os.environ.get("RESEEK_SW_FUSED", "0") == "1":
-        return mu_sw_score_fused_pallas(a, b, mumx_padded, open_, ext)
-    s = mu_smx_onehot(a, b, mumx_padded)
-    if on_tpu:
-        s = s.astype(jnp.bfloat16)
-    return sw_score_sweep_auto(s, open_, ext)
+                 mumx_padded: jnp.ndarray, open_: float, ext: float,
+                 kernels: bool = False) -> jnp.ndarray:
+    """Mu SW scores for letter-array pairs a [B, LA], b [B, LB] (letter 36
+    = padding).  kernels=True runs the CUDA kernel (ops/sw_cuda.py; the
+    table is looked up in-kernel, no substitution tensor in device
+    memory), else the one-hot smx + the scan sweep.  Identical values:
+    integer scores are exact under any evaluation order."""
+    if kernels:
+        from reseek_tpu.ops.sw_cuda import mu_sw_scores_cuda
+        return mu_sw_scores_cuda(a, b, mumx_padded, open_, ext)
+    return sw_score_sweep(mu_smx_onehot(a, b, mumx_padded), open_, ext)
 
 
 def mu_smx_onehot(a: jnp.ndarray, b: jnp.ndarray,
                   mumx_padded: jnp.ndarray) -> jnp.ndarray:
-    """S[b,i,j] = mumx[a[b,i], b[b,j]] via one-hot MXU matmuls; letter 36
+    """S[b,i,j] = mumx[a[b,i], b[b,j]] via one-hot matmuls; letter 36
     is padding (mumx_padded rows/cols 36 = NEG/2, so padded cells go to
     ~NEG).  Integer matrix values are exact in bf16.
 
@@ -393,12 +125,14 @@ def mu_smx_onehot(a: jnp.ndarray, b: jnp.ndarray,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("la", "lb", "open_", "ext", "omega_fwd", "omega"))
+    static_argnames=("la", "lb", "open_", "ext", "omega_fwd", "omega",
+                     "kernels"))
 def mu_filter_mask_sweep(mu_db: jnp.ndarray, mu_rev_db: jnp.ndarray,
                          idx_a: jnp.ndarray, idx_b: jnp.ndarray,
                          mumx_padded: jnp.ndarray,
                          la: int, lb: int, open_: float, ext: float,
-                         omega_fwd: float, omega: float) -> jnp.ndarray:
+                         omega_fwd: float, omega: float,
+                         kernels: bool = False) -> jnp.ndarray:
     """Batched Mu filter gate (src/dssaligner.cpp:619-630).
 
     For each pair: fwd = SW(mu[a], mu[b]); pass iff fwd >= OmegaFwd and
@@ -409,9 +143,8 @@ def mu_filter_mask_sweep(mu_db: jnp.ndarray, mu_rev_db: jnp.ndarray,
     a = mu_db[idx_a][:, :la].astype(jnp.int32)
     ar = mu_rev_db[idx_a][:, :la].astype(jnp.int32)
     b = mu_db[idx_b][:, :lb].astype(jnp.int32)
-    fwd = sw_score_sweep_auto(mu_smx_onehot(a, b, mumx_padded), open_, ext)
-    rev = sw_score_sweep_auto(mu_smx_onehot(ar, b, mumx_padded),
-                              open_, ext)
+    fwd = mu_sw_scores(a, b, mumx_padded, open_, ext, kernels)
+    rev = mu_sw_scores(ar, b, mumx_padded, open_, ext, kernels)
     # parasail 8-bit saturation (align/pipeline.py MU_SAT_* notes):
     # saturated fwd -> 777, saturated rev -> 255
     fwd = jnp.where(fwd > np.float32(250.0), np.float32(777.0), fwd)
@@ -421,18 +154,18 @@ def mu_filter_mask_sweep(mu_db: jnp.ndarray, mu_rev_db: jnp.ndarray,
 
 
 @functools.partial(jax.jit,
-                   static_argnames=("la", "lb", "open_", "ext"))
+                   static_argnames=("la", "lb", "open_", "ext", "kernels"))
 def mu_scores_sweep(mu_db: jnp.ndarray, mu_rev_db: jnp.ndarray,
                     idx_a: jnp.ndarray, idx_b: jnp.ndarray,
                     mumx_padded: jnp.ndarray, la: int, lb: int,
-                    open_: float, ext: float):
+                    open_: float, ext: float, kernels: bool = False):
     """(fwd, rev) Mu SW scores for each pair, same conventions as
-    mu_filter_mask_sweep.  fwd and rev run as ONE [2B] kernel batch on
-    the mu_sw_scores path (bf16 smx on TPU)."""
+    mu_filter_mask_sweep.  fwd and rev run as ONE [2B] kernel batch."""
     a = mu_db[idx_a][:, :la].astype(jnp.int32)
     ar = mu_rev_db[idx_a][:, :la].astype(jnp.int32)
     b = mu_db[idx_b][:, :lb].astype(jnp.int32)
     both = mu_sw_scores(jnp.concatenate([a, ar]),
-                        jnp.concatenate([b, b]), mumx_padded, open_, ext)
+                        jnp.concatenate([b, b]), mumx_padded, open_, ext,
+                        kernels)
     n = a.shape[0]
     return both[:n], both[n:]

@@ -19,8 +19,9 @@ here follows the standard JAX multi-controller recipe:
 
 All four steps are implemented by `distributed_fast_search` below and
 exposed as `search ... -fast -nprocs N -procid I -coord HOST:PORT` in the
-CLI.  On this runner only one chip exists, so CI exercises the full path
-with REAL process boundaries on the CPU backend:
+CLI (`--local-device-ids` pins a process to its card on a multi-card
+host; chip_smoke.py --four-cards runs four such processes).  The tests
+exercise the full path with REAL process boundaries on the CPU backend:
 tests/test_multihost.py spawns 2 jax.distributed subprocesses
 (localhost coordinator, Gloo collectives) and asserts byte-equality of
 process 0's merged output with the single-process fast_search output;
@@ -37,15 +38,23 @@ import numpy as np
 
 def init_distributed(coordinator: Optional[str] = None,
                      num_processes: Optional[int] = None,
-                     process_id: Optional[int] = None) -> Tuple[int, int]:
+                     process_id: Optional[int] = None,
+                     local_device_ids: Optional[List[int]] = None
+                     ) -> Tuple[int, int]:
     """Initialize jax.distributed (no-op for a single process).  Returns
-    (process_id, num_processes)."""
+    (process_id, num_processes).  local_device_ids restricts this process
+    to the given local devices (one card per process on a multi-card
+    host)."""
     import jax
     if num_processes is None or num_processes <= 1:
         return 0, 1
     jax.distributed.initialize(coordinator_address=coordinator,
                                num_processes=num_processes,
-                               process_id=process_id)
+                               process_id=process_id,
+                               local_device_ids=local_device_ids)
+    if jax.process_count() != num_processes:
+        raise RuntimeError(f"jax.distributed joined {jax.process_count()} "
+                           f"processes, expected {num_processes}")
     return jax.process_index(), jax.process_count()
 
 
@@ -83,7 +92,7 @@ def _mesh_shard_ranges(mesh, n_targets: int):
 def distributed_fast_search(queries, db, options, out,
                             scratch_dir: str, dbmu: Optional[str] = None,
                             top_b: int = 1500, prefilter_mode=None,
-                            engine: str = "host", mesh=None,
+                            engine: str = "auto", mesh=None,
                             resume: bool = False):
     """End-to-end multi-host -fast search (SURVEY §2.8 items 2-4; no
     reference counterpart — the reference is single-node,
@@ -121,7 +130,7 @@ def distributed_fast_search(queries, db, options, out,
                                           pad_topk_lists)
     from reseek_tpu.search.driver import (SearchDriver, _encode_all,
                                           _fast_align_device,
-                                          _fast_align_host)
+                                          _fast_align_host, fast_engine)
     from reseek_tpu.search.prefilter import MuPrefilter, PrefilterResult
 
     if mesh is None:
@@ -207,7 +216,9 @@ def distributed_fast_search(queries, db, options, out,
         with open(tmp_fn, "w") as rows_out:
             drv = SearchDriver(sens, options, rows_out)
             drv.query_count = nq
-            if engine == "device":
+            n_cand = sum(len(v) for v in t2q.values())
+            drv.engine = fast_engine(engine, n_cand)
+            if drv.engine == "device":
                 _fast_align_device(drv, q_ecs, survivor_chains(), t2q,
                                    sens, options)
             else:

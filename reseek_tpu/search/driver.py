@@ -2,8 +2,8 @@
 
 Host reference implementation mirroring DBSearcher semantics
 (src/dbsearcher.cpp, src/runself.cpp, src/runquery.cpp): pair enumeration,
-E-value acceptance, dual-orientation output rows.  The batched TPU engine
-(reseek_tpu/search/engine_jax.py) produces the same hits from padded
+E-value acceptance, dual-orientation output rows.  The batched device
+engine (reseek_tpu/search/engine.py) produces the same hits from padded
 length-bucketed batches.
 """
 
@@ -48,6 +48,7 @@ class SearchDriver:
         self.hit_count = 0
         self.processed_pairs = 0
         self.query_count = 0
+        self.engine = "host"  # "device" once the device engine ran
         self.t0 = time.time()
 
     def _reject(self, res: AlignResult) -> bool:
@@ -98,6 +99,7 @@ class SearchDriver:
                 "%10.10s  Comparisons/sec/thread (%u threads)\n"
                 % (int_to_str(int(pairs_per_sec / n_threads)), n_threads))
         a = self.aligner
+        lg.log("Engine %s\n" % self.engine)
         lg.log("DSSAligner::Stats() alns %d, mufil %d/%d %.1f%%\n"
                % (a.n_aligned, a.n_mu_input, a.n_mu_discarded,
                   100.0 * a.n_mu_discarded / a.n_mu_input
@@ -151,12 +153,26 @@ def _fwd_displayed(options: "SearchOptions") -> bool:
     return any(c in ("dpscore", "raw") for c in options.columns)
 
 
-def _tpu_available() -> bool:
-    try:
-        import jax
-        return any(d.platform == "tpu" for d in jax.devices())
-    except Exception:
-        return False
+def resolve_engine(engine: str, mesh=None) -> str:
+    """engine="auto": the device engine on the GPU (or with a mesh), the
+    host engine on the CPU (reseek_tpu/device.py)."""
+    if engine != "auto":
+        return engine
+    from reseek_tpu.device import default_engine
+    return "device" if mesh is not None else default_engine()
+
+
+def fast_engine(engine: str, n_cand: int, mesh=None) -> str:
+    """Stage-2 engine of the -fast pipeline: "auto" takes the device
+    engine only for at least RESEEK_FAST_DEVICE_MIN candidate pairs (the
+    device engine pays a per-process warm-up; small candidate sets finish
+    sooner on the native host path)."""
+    if engine != "auto":
+        return engine
+    min_dev = int(os.environ.get("RESEEK_FAST_DEVICE_MIN", "20000"))
+    if resolve_engine("auto", mesh) == "device" and n_cand >= min_dev:
+        return "device"
+    return "host"
 
 
 def self_search(chains: List[Chain], params: DSSParams,
@@ -165,14 +181,12 @@ def self_search(chains: List[Chain], params: DSSParams,
     """All-vs-all (src/runself.cpp): pairs (i, j >= i), self pair emitted
     once, other pairs in both orientations.
 
-    engine: "auto" uses the batched device engine when a TPU is attached,
-    "device" forces it, "host" runs the per-pair numpy path.
+    engine: "auto" uses the batched device engine on the GPU (see
+    resolve_engine), "device" forces it, "host" runs the per-pair path.
     mesh: optional jax.sharding.Mesh; stage-1 pair blocks and survivor
     alignment batches are sharded over its devices (SURVEY §2.8 items
     1-3), with bit-identical results to single-device."""
-    if engine == "auto":
-        engine = "device" if (_tpu_available() or mesh is not None) \
-            else "host"
+    engine = resolve_engine(engine, mesh)
     if mesh is not None and (engine != "device" or options.global_aln):
         import warnings
         warnings.warn("self_search: mesh is ignored on the host/global "
@@ -291,6 +305,7 @@ def _self_search_device(chains: List[Chain], params: DSSParams,
                             mesh=mesh)
 
     drv = SearchDriver(params, options, out)
+    drv.engine = "device"
     n = len(ecs)
     drv.query_count = n
     drv.processed_pairs = n * (n + 1) // 2
@@ -381,14 +396,12 @@ def query_search(queries: Iterable[Chain], db_chains,
     plus one chunk regardless of DB size — the reference's streaming
     behavior (src/runquery.cpp:31-79).
 
-    engine="device" batches each chunk's rectangle through the TPU
+    engine="device" batches each chunk's rectangle through the device
     engine (Mu filter + SW + LDDT staged like the self search); long
     (MKF-routed) pairs run on the host thread pool concurrently.  mesh
     shards the stage-2/3 pair batches over its devices (bit-equal
     output)."""
-    if engine == "auto":
-        engine = "device" if (_tpu_available() or mesh is not None) \
-            else "host"
+    engine = resolve_engine(engine, mesh)
     if mesh is not None and engine != "device":
         import warnings
         warnings.warn("query_search: mesh is ignored on the host path; "
@@ -447,6 +460,7 @@ def _query_search_device(queries: List[Chain], db_iter,
     nq = len(q_ecs)
 
     drv = SearchDriver(params, options, out)
+    drv.engine = "device"
     need_all = (options.scores_are_not_evalues
                 or math.isinf(options.max_evalue))
     pool = ThreadPoolExecutor(
@@ -552,7 +566,7 @@ def fast_search(queries: List[Chain], db, params: DSSParams,
     (reference -dbmu, src/search.cpp:96-99).
 
     engine="device" routes the stage-2 alignment of survivors through
-    the batched TPU pipeline (threaded target encode, device self-rev +
+    the batched device pipeline (threaded target encode, device self-rev +
     Mu filter + fused SW/LDDT; host MKF thread pool for long pairs) —
     the device analog of PostMuFilter's parallel ChainBag scan.  "host"
     keeps the serial per-pair loop.  Output rows are identical."""
@@ -623,14 +637,8 @@ def fast_search(queries: List[Chain], db, params: DSSParams,
                 yield tidx, db[tidx]
 
     n_cand = sum(len(v) for v in t2q.values())
-    if engine == "auto":
-        # the device engine pays per-process warmup (kernel loads through
-        # the runtime); small candidate sets finish faster on the native
-        # host path (PostMuFilter-style parallel scan below)
-        min_dev = int(os.environ.get("RESEEK_FAST_DEVICE_MIN", "20000"))
-        use_dev = (_tpu_available() or mesh is not None) \
-            and n_cand >= min_dev
-        engine = "device" if use_dev else "host"
+    engine = fast_engine(engine, n_cand, mesh)
+    drv.engine = engine
     if engine == "device":
         _fast_align_device(drv, q_ecs, survivor_chains(), t2q, sens,
                            options, mesh=mesh)

@@ -36,8 +36,6 @@ import ctypes
 import dataclasses
 import functools
 import os
-import subprocess
-import threading
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -54,28 +52,13 @@ RSB_SIZE = 1500
 MASK14 = (1 << 14) - 1
 MAX_QUERY_CHAINS_FOR_QUERY_NEIGHBORHOOD = 100
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), "native", "prefilter.cpp")
 
 
 @functools.lru_cache(maxsize=1)
 def _lib() -> Optional[ctypes.CDLL]:
-    if os.environ.get("RESEEK_NATIVE", "1") == "0":
-        return None
-    cache_dir = os.environ.get(
-        "RESEEK_NATIVE_CACHE", os.path.join(os.path.dirname(_SRC), "build"))
-    so_path = os.path.join(cache_dir, "libprefilter.so")
-    try:
-        if (not os.path.exists(so_path)
-                or os.path.getmtime(so_path) < os.path.getmtime(_SRC)):
-            os.makedirs(cache_dir, exist_ok=True)
-            subprocess.run(
-                ["g++", "-O2", "-march=native", "-std=c++17", "-shared",
-                 "-fPIC", "-pthread", _SRC, "-o", so_path + ".tmp"],
-                check=True, capture_output=True)
-            os.replace(so_path + ".tmp", so_path)
-        lib = ctypes.CDLL(so_path)
-    except Exception:
+    from reseek_tpu.native_build import load_host
+    lib = load_host("prefilter")
+    if lib is None:
         return None
     u8p = ctypes.POINTER(ctypes.c_uint8)
     u16p = ctypes.POINTER(ctypes.c_uint16)

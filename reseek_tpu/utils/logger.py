@@ -1,6 +1,6 @@
 """Logging / progress / run statistics.
 
-TPU-native counterpart of the reference's L0 observability surface
+Counterpart of the reference's L0 observability surface
 (src/myutils.h Log/Progress/ProgressLog, -log FILE option;
 src/reseek_main.cpp:61-62 elapsed-time + peak-RAM report): a process-wide
 logger with an optional log file, single-line console progress updates,

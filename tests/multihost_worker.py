@@ -27,7 +27,7 @@ def main():
     from reseek_tpu.parallel.multihost import distributed_fast_search
     from reseek_tpu.search.driver import SearchOptions
 
-    ref = os.environ.get("REF_TEST_DATA", "/root/reference/test_data")
+    ref = os.environ["RESEEK_TEST_DATA"]
     queries = read_bca(os.path.join(ref, "q10.bca"))
     options = SearchOptions(columns=parse_columns("std"),
                             max_evalue=10.0, mode="fast")

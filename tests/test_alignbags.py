@@ -6,7 +6,7 @@ import io
 import os
 from contextlib import redirect_stderr
 
-from conftest import GOLDEN, REF_TEST_DATA
+from conftest import GOLDEN, TEST_DATA
 
 
 def test_align_bags_golden(tmp_path):
@@ -14,7 +14,7 @@ def test_align_bags_golden(tmp_path):
     out = tmp_path / "ab.tsv"
     with redirect_stderr(io.StringIO()):
         rc = main(["align-bags",
-                   os.path.join(REF_TEST_DATA, "q100.bca"),
+                   os.path.join(TEST_DATA, "q100.bca"),
                    "--output", str(out)])
     assert rc == 0
     with open(os.path.join(GOLDEN, "alignbags_q100.tsv")) as f:

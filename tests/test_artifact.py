@@ -6,10 +6,10 @@ import os
 import numpy as np
 import pytest
 
-from tests.conftest import REF_TEST_DATA
+from tests.conftest import TEST_DATA
 
-Q10 = os.path.join(REF_TEST_DATA, "q10.bca")
-Q100 = os.path.join(REF_TEST_DATA, "q100.bca")
+Q10 = os.path.join(TEST_DATA, "q10.bca")
+Q100 = os.path.join(TEST_DATA, "q100.bca")
 
 
 def _search_rows(chains, mode="sensitive", engine="host"):

@@ -9,10 +9,10 @@ import sys
 import numpy as np
 import pytest
 
-from tests.conftest import REF_TEST_DATA
+from tests.conftest import TEST_DATA
 
-Q10 = os.path.join(REF_TEST_DATA, "q10.bca")
-Q100 = os.path.join(REF_TEST_DATA, "q100.bca")
+Q10 = os.path.join(TEST_DATA, "q10.bca")
+Q100 = os.path.join(TEST_DATA, "q100.bca")
 
 
 def test_gapless_sw_matches_kadane():

@@ -18,10 +18,10 @@ import os
 
 import pytest
 
-from conftest import GOLDEN, REF_TEST_DATA
+from conftest import GOLDEN, TEST_DATA
 
-Q10 = os.path.join(REF_TEST_DATA, "q10.bca")
-Q100 = os.path.join(REF_TEST_DATA, "q100.bca")
+Q10 = os.path.join(TEST_DATA, "q10.bca")
+Q100 = os.path.join(TEST_DATA, "q100.bca")
 
 
 def _run_fast(engine, mode=None):

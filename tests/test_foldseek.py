@@ -10,7 +10,7 @@ from contextlib import redirect_stderr
 
 import numpy as np
 
-from conftest import REF_TEST_DATA
+from conftest import TEST_DATA
 
 
 def test_foldseek_roundtrip(tmp_path):
@@ -21,7 +21,7 @@ def test_foldseek_roundtrip(tmp_path):
                                         read_foldseek_db,
                                         write_foldseek_db)
 
-    chains = read_bca(os.path.join(REF_TEST_DATA, "q10.bca"))
+    chains = read_bca(os.path.join(TEST_DATA, "q10.bca"))
     s3di = {c.label: feature_string(encode_chain(c), "Mu")
             for c in chains}
     prefix = str(tmp_path / "db")

@@ -6,7 +6,7 @@ import os
 
 import numpy as np
 
-from tests.conftest import GOLDEN, REF_TEST_DATA, load_fasta
+from tests.conftest import GOLDEN, TEST_DATA, load_fasta
 from reseek_tpu.chain import Chain
 from reseek_tpu.io.bca import BCAReader, read_bca, write_bca
 from reseek_tpu.io.cal import read_cal, write_cal
@@ -28,7 +28,7 @@ def test_bca_roundtrip(tmp_path, q100_chains):
     out = str(tmp_path / "rt.bca")
     write_bca(q100_chains, out)
     # byte-identical to the reference-produced file
-    ref_bytes = open(os.path.join(REF_TEST_DATA, "q100.bca"), "rb").read()
+    ref_bytes = open(os.path.join(TEST_DATA, "q100.bca"), "rb").read()
     assert open(out, "rb").read() == ref_bytes
 
 
@@ -76,9 +76,9 @@ def test_format_errors_counted_not_fatal(tmp_path):
     import shutil
     import pytest
     from reseek_tpu.io import reader
-    from tests.conftest import REF_TEST_DATA
+    from tests.conftest import TEST_DATA
     import os
-    good = os.path.join(REF_TEST_DATA, "q10.bca")
+    good = os.path.join(TEST_DATA, "q10.bca")
     shutil.copy(good, tmp_path / "good.bca")
     (tmp_path / "bad.bca").write_bytes(b"NOT A BCA FILE")
     before = reader.format_errors

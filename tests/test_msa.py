@@ -13,9 +13,9 @@ import os
 import numpy as np
 import pytest
 
-from tests.conftest import REF_TEST_DATA
+from tests.conftest import TEST_DATA
 
-Q10 = os.path.join(REF_TEST_DATA, "q10.bca")
+Q10 = os.path.join(TEST_DATA, "q10.bca")
 
 
 @pytest.fixture(scope="module")

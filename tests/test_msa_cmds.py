@@ -9,13 +9,13 @@ import io
 import os
 from contextlib import redirect_stderr
 
-from conftest import GOLDEN, REF_TEST_DATA
+from conftest import GOLDEN, TEST_DATA
 
 
 def test_alignselfrev_golden(tmp_path):
     from reseek_tpu.cli import main
     out = tmp_path / "asr.tsv"
-    rc = main(["alignselfrev", os.path.join(REF_TEST_DATA, "q10.bca"),
+    rc = main(["alignselfrev", os.path.join(TEST_DATA, "q10.bca"),
                "--output", str(out)])
     assert rc == 0
     with open(os.path.join(GOLDEN, "alignselfrev_q10.tsv")) as f:

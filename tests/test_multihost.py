@@ -23,7 +23,7 @@ import tempfile
 
 import pytest
 
-from conftest import GOLDEN
+from conftest import GOLDEN, TEST_DATA
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORKER = os.path.join(HERE, "multihost_worker.py")
@@ -41,6 +41,7 @@ def _run_workers(nproc, top_b, scratch):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+    env["RESEEK_TEST_DATA"] = TEST_DATA
     env.pop("JAX_NUM_PROCESSES", None)
     port = _free_port()
     procs = [subprocess.Popen(
@@ -67,7 +68,7 @@ def test_two_process_matches_reference_golden():
 def test_two_process_cli():
     """The CLI surface (search --fast --nprocs/--procid/--coord) drives
     the same distributed path; rank 0's --output equals the golden."""
-    ref = os.environ.get("REF_TEST_DATA", "/root/reference/test_data")
+    ref = TEST_DATA
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
@@ -112,7 +113,7 @@ def test_distributed_resume_skips_completed_shard(tmp_path):
     from reseek_tpu.parallel.multihost import distributed_fast_search
     from reseek_tpu.search.driver import SearchOptions
 
-    ref = os.environ.get("REF_TEST_DATA", "/root/reference/test_data")
+    ref = TEST_DATA
     queries = read_bca(os.path.join(ref, "q10.bca"))[:3]
     options = SearchOptions(columns=parse_columns("std"),
                             max_evalue=10.0, mode="fast")

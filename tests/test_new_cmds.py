@@ -15,7 +15,7 @@ import sys
 import numpy as np
 import pytest
 
-from conftest import GOLDEN, REF_TEST_DATA
+from conftest import GOLDEN, TEST_DATA
 
 MSTA = os.path.join(GOLDEN, "msta.afa")
 MSTA_SET = os.path.join(GOLDEN, "msta_set.cal")
@@ -37,8 +37,8 @@ def test_tracealn_golden(tmp_path):
     routing, self-rev scores, path prefix, E-value, Mu filter verdicts —
     all bit-parity quantities)."""
     log = tmp_path / "trace.log"
-    assert run_cli(["tracealn", os.path.join(REF_TEST_DATA, "q10.bca"),
-                    "--db", os.path.join(REF_TEST_DATA, "q10.bca"),
+    assert run_cli(["tracealn", os.path.join(TEST_DATA, "q10.bca"),
+                    "--db", os.path.join(TEST_DATA, "q10.bca"),
                     "--log", str(log)]) == 0
     body = "".join(l for l in log.read_text().splitlines(True)
                    if not l.startswith(("Finished", "Elapsed",

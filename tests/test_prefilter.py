@@ -90,15 +90,15 @@ def test_scop40_scale_prefilter_parity():
     from reseek_tpu.io.bca import read_bca
     from reseek_tpu.search.prefilter import (_swap_kl, prefilter_search,
                                              read_mu_fasta)
-    from tests.conftest import GOLDEN, REF_TEST_DATA
+    from tests.conftest import GOLDEN, TEST_DATA
 
-    scopfa = os.path.join(REF_TEST_DATA, "scop40.mu.fa")
+    scopfa = os.path.join(TEST_DATA, "scop40.mu.fa")
     if not os.path.exists(scopfa):
         import pytest
         pytest.skip("scop40.mu.fa not available")
     # query Mu letters exactly as the reference -convert2mu FASTA would
     # round-trip them (encode -> ASCII -> g_CharToLetterMu)
-    chain = read_bca(os.path.join(REF_TEST_DATA, "1hhs.bca"))[0]
+    chain = read_bca(os.path.join(TEST_DATA, "1hhs.bca"))[0]
     q_mu = _swap_kl(encode_chain(chain).mu_letters)
     tlabels, t_mu = read_mu_fasta(scopfa)
     pf = prefilter_search([q_mu], enumerate(t_mu), mode="exact",

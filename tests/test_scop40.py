@@ -2,19 +2,19 @@
 
 import os
 
-from tests.conftest import REF_TEST_DATA
+from tests.conftest import TEST_DATA
 from reseek_tpu.benchmarks.scop40 import Scop40Eval, read_dom_scopid
 
 
 def test_truth_table_counts():
-    d = read_dom_scopid(os.path.join(REF_TEST_DATA, "dom_scopid.tsv"))
+    d = read_dom_scopid(os.path.join(TEST_DATA, "dom_scopid.tsv"))
     ev = Scop40Eval(d)
     assert ev.nrdoms == 11211
     assert ev.nt == 454766  # matches scop40.py level sf2
 
 
 def test_is_tp_levels():
-    d = read_dom_scopid(os.path.join(REF_TEST_DATA, "dom_scopid.tsv"))
+    d = read_dom_scopid(os.path.join(TEST_DATA, "dom_scopid.tsv"))
     ev = Scop40Eval(d)
     doms = list(d)
     sf_groups = {}
@@ -28,7 +28,7 @@ def test_is_tp_levels():
 
 
 def test_sepq_synthetic():
-    d = read_dom_scopid(os.path.join(REF_TEST_DATA, "dom_scopid.tsv"))
+    d = read_dom_scopid(os.path.join(TEST_DATA, "dom_scopid.tsv"))
     ev = Scop40Eval(d)
     doms = list(d)
     sf_groups = {}

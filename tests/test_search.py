@@ -1,16 +1,17 @@
 """End-to-end search parity: our self-search output must be byte-identical
 to the reference binary's on q10.bca (goldens committed from
-reseek -search q10.bca -verysensitive/-sensitive, 1 thread)."""
+reseek -search q10.bca -verysensitive/-sensitive, 1 thread).  The q10
+chains here come from tests/golden/q100.cal, whose coordinates are rounded
+to 0.1 A; -sensitive rows are unchanged by that rounding."""
 
 import io
 import os
 
 import pytest
 
-from tests.conftest import GOLDEN, REF_TEST_DATA
+from tests.conftest import GOLDEN, golden_q10
 from reseek_tpu.align.output import parse_columns
 from reseek_tpu.constants import DSSParams
-from reseek_tpu.io.bca import read_bca
 from reseek_tpu.search.driver import SearchOptions, self_search
 
 COLUMNS = "query+target+qlo+qhi+tlo+thi+dpscore+lddt+newts+evalue+cigar"
@@ -22,9 +23,8 @@ def _run_self(mode: str) -> str:
                             max_evalue=float("inf") if mode == "verysensitive"
                             else 10.0,
                             mode=mode)
-    chains = read_bca(os.path.join(REF_TEST_DATA, "q10.bca"))
     buf = io.StringIO()
-    self_search(chains, params, options, buf)
+    self_search(golden_q10(), params, options, buf)
     return buf.getvalue()
 
 
@@ -67,13 +67,13 @@ def test_kabsch_recovers_rotation():
 
 
 @pytest.mark.slow
-def test_q10_device_pipeline_byte_identical():
+def test_q10_device_pipeline_byte_identical(q10_chains):
     """The sorted-DB rectangular device pipeline (engine='device', here on
     CPU) must produce the same bytes as the host path / reference."""
     params = DSSParams.create("sensitive")
     options = SearchOptions(columns=parse_columns(COLUMNS),
                             max_evalue=10.0, mode="sensitive")
-    chains = read_bca(os.path.join(REF_TEST_DATA, "q10.bca"))
+    chains = q10_chains
     buf = io.StringIO()
     self_search(chains, params, options, buf, engine="device")
     golden = open(os.path.join(GOLDEN, "q10_sens.tsv")).read()
@@ -81,7 +81,7 @@ def test_q10_device_pipeline_byte_identical():
 
 
 @pytest.mark.slow
-def test_q10_sharded_mesh_byte_identical():
+def test_q10_sharded_mesh_byte_identical(q10_chains):
     """Multi-chip search (SURVEY §2.8): the engine sharded over an
     8-virtual-device mesh must produce hit-for-hit (byte-identical)
     output vs the single-device engine / reference golden."""
@@ -92,7 +92,7 @@ def test_q10_sharded_mesh_byte_identical():
     params = DSSParams.create("sensitive")
     options = SearchOptions(columns=parse_columns(COLUMNS),
                             max_evalue=10.0, mode="sensitive")
-    chains = read_bca(os.path.join(REF_TEST_DATA, "q10.bca"))
+    chains = q10_chains
     # 6 shortest chains: exercises the mesh path with few bucket shapes
     # (the full-set single-device parity is covered by the test above)
     chains = sorted(chains, key=lambda c: len(c.seq))[:6]
@@ -107,7 +107,7 @@ def test_q10_sharded_mesh_byte_identical():
     assert buf_mesh.getvalue().count("\n") > 5
 
 
-def test_q10_device_with_e_prepass_byte_identical(monkeypatch):
+def test_q10_device_with_e_prepass_byte_identical(monkeypatch, q10_chains):
     """The E-bound score-only prepass (skips the traceback kernel for
     pairs whose best-possible E exceeds the gate) must not change a
     single output byte — forced on with RESEEK_E_PREPASS_MIN=1."""
@@ -115,7 +115,7 @@ def test_q10_device_with_e_prepass_byte_identical(monkeypatch):
     params = DSSParams.create("sensitive")
     options = SearchOptions(columns=parse_columns(COLUMNS),
                             max_evalue=10.0, mode="sensitive")
-    chains = read_bca(os.path.join(REF_TEST_DATA, "q10.bca"))
+    chains = q10_chains
     buf = io.StringIO()
     self_search(chains, params, options, buf, engine="device")
     golden = open(os.path.join(GOLDEN, "q10_sens.tsv")).read()

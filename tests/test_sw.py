@@ -110,3 +110,53 @@ def test_sw_perfect_diagonal():
     np.fill_diagonal(S, 2.0)
     score, lo_a, lo_b, path = sw_align(S, -1.0, -0.5)
     assert score == 10.0 and lo_a == 0 and lo_b == 0 and path == "MMMMM"
+
+
+def _random_batch(rng, b, la, lb, integer=True):
+    """NEG-padded batch with ragged valid regions."""
+    from reseek_tpu.ops.sw_np import NEG
+    s = np.full((b, la, lb), NEG, np.float32)
+    las = rng.integers(3, la + 1, b)
+    lbs = rng.integers(3, lb + 1, b)
+    for k in range(b):
+        if integer:
+            v = rng.integers(-3, 4, (las[k], lbs[k])).astype(np.float32)
+        else:
+            v = rng.normal(0, 2, (las[k], lbs[k])).astype(np.float32)
+        s[k, :las[k], :lbs[k]] = v
+    return s, las, lbs
+
+
+@pytest.mark.parametrize("integer", [True, False])
+def test_wavefront_score_parity(integer):
+    """The plain JAX wavefront (ops/sw_jax.py) scores padded, tie-prone
+    batches exactly like the numpy reference."""
+    import jax.numpy as jnp
+    from reseek_tpu.ops.sw_jax import sw_score_batch
+    rng = np.random.default_rng(1)
+    s, las, lbs = _random_batch(rng, 9, 40, 56, integer)
+    got = np.asarray(sw_score_batch(jnp.asarray(s), -2.0, -0.5))
+    for k in range(9):
+        want = sw_score(s[k, :las[k], :lbs[k]], -2.0, -0.5)
+        assert got[k] == np.float32(want), (k, got[k], want)
+
+
+def test_wavefront_traceback_parity():
+    """Wavefront traceback bits + host walk reproduce the reference
+    alignment on padded, tie-prone integer batches."""
+    import jax.numpy as jnp
+    from reseek_tpu.ops.sw_jax import _tb_jit, walk_traceback
+    rng = np.random.default_rng(2)
+    b = 8
+    s, las, lbs = _random_batch(rng, b, 33, 41, integer=True)
+    best, bi, bj, tb = (np.asarray(x) for x in
+                        _tb_jit(jnp.asarray(s), -1.5, -0.25))
+    for k in range(b):
+        want_score, lo_a, lo_b, path = sw_align(
+            s[k, :las[k], :lbs[k]], -1.5, -0.25)
+        if want_score <= 0:
+            assert best[k] <= 0
+            continue
+        assert best[k] == np.float32(want_score)
+        assert walk_traceback(tb[:, k, :], int(bi[k]), int(bj[k])) \
+            == (lo_a, lo_b, path)

@@ -40,17 +40,16 @@ def test_sweep_rectangular_and_gap_params():
         assert got[k] == sw_score(m, -11.0, -1.0)
 
 
-def test_mu_filter_mask_matches_pair_aligner():
+def test_mu_filter_mask_matches_pair_aligner(q10_chains):
     """Gate decisions equal the host PairAligner on real encoded chains."""
     import jax.numpy as jnp
 
     from reseek_tpu.align.pipeline import PairAligner, encode_for_search
     from reseek_tpu.constants import DSSParams
-    from reseek_tpu.io.bca import read_bca
     from reseek_tpu.search.engine import _mu_matrix_padded
 
     params = DSSParams.create("sensitive")
-    chains = read_bca("/root/reference/test_data/q10.bca")
+    chains = q10_chains
     ecs = [encode_for_search(c, params, with_self_rev=False) for c in chains]
     lens = np.array([len(e) for e in ecs])
     lmax = int(lens.max())
@@ -89,119 +88,32 @@ def test_mu_filter_mask_matches_pair_aligner():
             assert fe - re_ == exact
 
 
-def test_sweep_pallas_matches_scan():
-    """Pallas row-sweep (interpret mode on CPU) == lax.scan sweep."""
-    import jax.numpy as jnp
-    from reseek_tpu.ops.sw_sweep import sw_score_sweep_pallas
-    rng = np.random.default_rng(11)
-    mats = []
-    for _ in range(10):
-        a, b = rng.integers(3, 120, 2)
-        mats.append(rng.integers(-7, 5, (a, b)).astype(np.float32))
-    s = _pad_batch(mats, 120, 128)
-    got = np.asarray(sw_score_sweep_pallas(jnp.asarray(s), -2.0, -1.0))
-    want = np.asarray(sw_score_sweep(jnp.asarray(s), -2.0, -1.0))
-    assert np.array_equal(got, want)
-    for k, m in enumerate(mats):
-        assert got[k] == sw_score(m, -2.0, -1.0)
-
-
-def test_fused_smx_pallas_matches_materialized():
-    """Fused-smx Pallas sweep (substitution rows built in-kernel) ==
-    materialize-then-sweep, on real Mu letters from q10 chains."""
+@pytest.mark.parametrize("kernels", [False, True])
+def test_mu_sw_scores_kernel_choice(monkeypatch, kernels):
+    """mu_sw_scores routes to the CUDA kernel only when asked; the plain
+    path is the one-hot smx + scan sweep."""
     import jax.numpy as jnp
 
-    from reseek_tpu.constants import DSSParams
-    from reseek_tpu.encoder.dss import encode_chain
-    from reseek_tpu.io.bca import read_bca
-    from reseek_tpu.ops.sw_sweep import (mu_smx_onehot,
-                                         mu_sw_score_fused_pallas)
+    from reseek_tpu.ops import sw_cuda
+    from reseek_tpu.ops.sw_sweep import mu_smx_onehot, mu_sw_scores
     from reseek_tpu.search.engine import _mu_matrix_padded
 
-    params = DSSParams.create("sensitive")
-    chains = read_bca("/root/reference/test_data/q10.bca")
-    mus = [encode_chain(c).mu_letters for c in chains]
-    la = 128 * (-(-max(len(m) for m in mus) // 128))
-    n = len(mus)
-    mu = np.full((n, la), 36, np.uint8)
-    for i, m in enumerate(mus):
-        mu[i, :len(m)] = m
+    calls = []
+
+    def fake_cuda(a, b, mumx, o, e):
+        calls.append((a.shape, b.shape, o, e))
+        return jnp.zeros(a.shape[0], jnp.float32)
+
+    monkeypatch.setattr(sw_cuda, "mu_sw_scores_cuda", fake_cuda)
+    rng = np.random.default_rng(4)
+    a = jnp.asarray(rng.integers(0, 36, (3, 20)).astype(np.int32))
+    b = jnp.asarray(rng.integers(0, 36, (3, 33)).astype(np.int32))
     mumx = jnp.asarray(_mu_matrix_padded())
-    rng = np.random.default_rng(5)
-    ia = rng.integers(0, n, 24)
-    ib = rng.integers(0, n, 24)
-    a = jnp.asarray(mu[ia].astype(np.int32))
-    b = jnp.asarray(mu[ib].astype(np.int32))
-    o, e = -float(params.para_mu_gap_open), -float(params.para_mu_gap_ext)
-    got = np.asarray(mu_sw_score_fused_pallas(a, b, mumx, o, e))
-    want = np.asarray(sw_score_sweep(mu_smx_onehot(a, b, mumx), o, e))
-    assert np.array_equal(got, want)
-
-
-def test_fused_smx_ragged_rows():
-    """Row-count not a K_ROWS multiple + batch not a tile multiple."""
-    import jax.numpy as jnp
-    from reseek_tpu.ops.sw_sweep import (mu_smx_onehot,
-                                         mu_sw_score_fused_pallas)
-    from reseek_tpu.search.engine import _mu_matrix_padded
-    rng = np.random.default_rng(6)
-    a = rng.integers(0, 36, (3, 45)).astype(np.int32)
-    b = rng.integers(0, 36, (3, 128)).astype(np.int32)
-    mumx = jnp.asarray(_mu_matrix_padded())
-    got = np.asarray(mu_sw_score_fused_pallas(
-        jnp.asarray(a), jnp.asarray(b), mumx, -2.0, -1.0))
-    want = np.asarray(sw_score_sweep(
-        mu_smx_onehot(jnp.asarray(a), jnp.asarray(b), mumx), -2.0, -1.0))
-    assert np.array_equal(got, want)
-
-
-def test_sweep_pallas_bf16_matches_f32():
-    """bf16 substitution blocks (the TPU default: halves smx HBM traffic)
-    sweep to the identical scores — integer Mu values are bf16-exact and
-    DP math stays f32 in-kernel."""
-    import jax.numpy as jnp
-    from reseek_tpu.ops.sw_sweep import sw_score_sweep_pallas
-    rng = np.random.default_rng(12)
-    mats = []
-    for _ in range(9):
-        a, b = rng.integers(3, 150, 2)
-        mats.append(rng.integers(-7, 5, (a, b)).astype(np.float32))
-    s = _pad_batch(mats, 150, 256)
-    got16 = np.asarray(sw_score_sweep_pallas(
-        jnp.asarray(s).astype(jnp.bfloat16), -2.0, -1.0))
-    got32 = np.asarray(sw_score_sweep_pallas(jnp.asarray(s), -2.0, -1.0))
-    assert np.array_equal(got16, got32)
-    for k, m in enumerate(mats):
-        assert got16[k] == sw_score(m, -2.0, -1.0)
-
-
-def test_mu_sw_scores_paths_agree():
-    """mu_sw_scores' three paths (scan, bf16 pallas, fused pallas) agree
-    bit-for-bit on real Mu letters (pallas paths in interpret mode)."""
-    import jax.numpy as jnp
-
-    from reseek_tpu.encoder.dss import encode_chain
-    from reseek_tpu.io.bca import read_bca
-    from reseek_tpu.ops.sw_sweep import (mu_smx_onehot,
-                                         mu_sw_score_fused_pallas,
-                                         sw_score_sweep,
-                                         sw_score_sweep_pallas)
-    from reseek_tpu.search.engine import _mu_matrix_padded
-
-    chains = read_bca("/root/reference/test_data/q10.bca")[:6]
-    mus = [encode_chain(c).mu_letters for c in chains]
-    la = 128 * (-(-max(len(m) for m in mus) // 128))
-    mu = np.full((len(mus), la), 36, np.uint8)
-    for i, m in enumerate(mus):
-        mu[i, :len(m)] = m
-    a = jnp.asarray(mu.astype(np.int32))
-    b = jnp.asarray(mu[::-1].copy().astype(np.int32))
-    mumx = jnp.asarray(_mu_matrix_padded())
-    s = mu_smx_onehot(a, b, mumx)
-    want = np.asarray(sw_score_sweep(s, -2.0, -1.0))
-    got_bf16 = np.asarray(sw_score_sweep_pallas(
-        s.astype(jnp.bfloat16), -2.0, -1.0))
-    got_fused = np.asarray(mu_sw_score_fused_pallas(a, b, mumx,
-                                                    -2.0, -1.0))
-    assert np.array_equal(got_bf16, want)
-    assert np.array_equal(got_fused, want)
+    got = np.asarray(mu_sw_scores(a, b, mumx, -2.0, -1.0, kernels))
+    if kernels:
+        assert calls == [((3, 20), (3, 33), -2.0, -1.0)]
+    else:
+        assert calls == []
+        want = np.asarray(sw_score_sweep(mu_smx_onehot(a, b, mumx),
+                                         -2.0, -1.0))
+        assert np.array_equal(got, want)

@@ -5,10 +5,10 @@ import os
 
 import numpy as np
 
-from conftest import REF_TEST_DATA
+from conftest import TEST_DATA
 
-Q10 = os.path.join(REF_TEST_DATA, "q10.bca")
-Q100 = os.path.join(REF_TEST_DATA, "q100.bca")
+Q10 = os.path.join(TEST_DATA, "q10.bca")
+Q100 = os.path.join(TEST_DATA, "q100.bca")
 
 
 def _mesh(n):

@@ -14,7 +14,7 @@ import os
 import re
 from contextlib import redirect_stderr
 
-from conftest import GOLDEN, REF_TEST_DATA
+from conftest import GOLDEN, TEST_DATA
 
 
 def test_float_feature_bins_golden(tmp_path):
@@ -38,7 +38,7 @@ def test_sscluster_functional(tmp_path):
     from reseek_tpu.cli import main
     out = tmp_path / "ssc.txt"
     with redirect_stderr(io.StringIO()):
-        rc = main(["sscluster", os.path.join(REF_TEST_DATA, "q10.bca"),
+        rc = main(["sscluster", os.path.join(TEST_DATA, "q10.bca"),
                    "-k", "8", "-n", "2000", "--output", str(out)])
     assert rc == 0
     lines = [ln for ln in out.read_text().splitlines()

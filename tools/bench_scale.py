@@ -10,18 +10,8 @@ Usage: python tools/bench_scale.py DB_PREFIX [--no-dbmu] [--mode idxq|idxt]
   src/search.cpp:96-99; the reference's own speed test also runs with
   -dbmu, test_scripts/idxqt_speed.bash).
 
-Prints one JSON line: wall seconds, peak RSS MB, chains, hits.
-
-Measured 2026-08-21 on the round-4 runner (2 CPU cores), hits
-byte-identical to the reference binary in every row:
-
-  chains   ours (wall / peak RSS)   reference -threads 1 (same host)
-  10,000        4.4 s / 184 MB          51.4 s / ~631 MB   (11.7x)
-  300,000      16.8 s / 310 MB          81.3 s / ~630 MB   (4.9x)
-
-(The "rip" envelope in BASELINE.md — 329k chains in <=10 s / <=700 MB —
-is from a much faster AVX2 host; the same-host ratio is the meaningful
-comparison, and the 300k memory envelope is met at 310 MB.)
+Prints one JSON line: wall seconds, peak RSS MB, chains, hits.  The
+query is 1hhs_A from tests/golden/sepq_set.cal.
 """
 
 import io
@@ -42,11 +32,12 @@ def main():
         mode = sys.argv[sys.argv.index("--mode") + 1]
 
     from reseek_tpu.align.output import parse_columns
+    from reseek_tpu.benchmarks.replicas import golden_chains
     from reseek_tpu.constants import DSSParams
-    from reseek_tpu.io.bca import read_bca
     from reseek_tpu.search.driver import SearchOptions, fast_search
 
-    queries = read_bca("/root/reference/test_data/1hhs.bca")
+    queries = [c for c in golden_chains(("sepq_set.cal",))
+               if c.label == "1hhs_A"]
     opts = SearchOptions(columns=parse_columns("std"),
                          max_evalue=10.0, mode="fast")
     buf = io.StringIO()

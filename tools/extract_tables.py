@@ -8,7 +8,7 @@ C++ source as array literals:
   - /root/reference/src/mumx_data.cpp         (ScoreMx_Mu float, IntScoreMx_Mu int8)
 
 These are *trained model parameters* (data, not code).  This script parses the
-array literals and stores them as numpy arrays so the TPU engine can load them
+array literals and stores them as numpy arrays so the engine can load them
 without any C++ dependency.  Run once; the .npz is committed.
 
 Usage:  python tools/extract_tables.py
